@@ -15,16 +15,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> int:
-    from kmer_tpu.cli import _enable_compile_cache
+    from kmer_tpu.cli import enable_compile_cache
 
-    _enable_compile_cache()  # measured 47.7s -> 3.8s per step graph
-    import jax
-    import jax.numpy as jnp
-
-    # early tiny device op + marker line: lets scripts/tpu_run.sh tell a
-    # hung device claim apart from a long compile
-    print(f"claim ok: {float(jnp.ones(2).sum())}", file=sys.stderr, flush=True)
-
+    enable_compile_cache()
     from kmer_tpu.bench import run_bench, run_bench_stream, run_chr_bench, run_query_bench
 
     n_reads = int(os.environ.get("KMER_BENCH_READS", 1 << 20))
@@ -41,42 +34,8 @@ def main() -> int:
         fn = run_bench_stream if mode == "stream" else run_bench
         result = fn(n_reads=n_reads, read_len=150, k=21, canonical=True)
     detail = result.pop("detail", {})
-    # surface the sustained configs[3]-scale run (scripts/sustained_r4.py,
-    # run separately on hardware: >=1e10 k-mers streamed + kill/resume)
-    sus_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "SUSTAINED.json")
-    if os.path.exists(sus_path):
-        try:
-            with open(sus_path) as f:
-                s = json.load(f)
-            detail["sustained"] = {
-                k: s[k]
-                for k in ("value", "total_kmers", "wall_s",
-                          "checkpoint_overhead_pct", "n_checkpoints",
-                          "kill_resume_verified", "distinct", "device")
-                if k in s
-            }
-        except Exception:
-            pass
-    here = os.path.dirname(os.path.abspath(__file__))
-    for name in ("INGEST_r05.json", "INGEST_r04.json"):  # newest wins
-        ing_path = os.path.join(here, name)
-        if os.path.exists(ing_path):
-            try:
-                with open(ing_path) as f:
-                    detail["out_of_core_ingest"] = json.load(f)
-            except Exception:
-                pass
-            break
-    dc_path = os.path.join(here, "DISTCOUNT_r05.json")
-    if os.path.exists(dc_path):
-        try:
-            with open(dc_path) as f:
-                detail["distcount"] = json.load(f)
-        except Exception:
-            pass
-    print(json.dumps(result), flush=True)
     print(json.dumps({"detail": detail}), file=sys.stderr)
+    print(json.dumps(result), flush=True)
     return 0
 
 

@@ -1,11 +1,11 @@
-"""kmer_tpu — a TPU-native k-mer engine.
+"""kmer_tpu — an exact k-mer engine in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the
+Built from scratch in JAX/XLA with the capabilities of the
 `kmer-extension` PostgreSQL reference (see SURVEY.md): DNA/kmer/qkmer
 datatypes, predicates (=, ^@, @>, <@), sliding-window extraction
 (generate_kmers), exact counting (GROUP BY semantics), and an indexed
-query path replacing the reference's SP-GiST trie — scaled across TPU
-meshes via shard_map collectives.
+query path replacing the reference's SP-GiST trie — scaled across
+device meshes via shard_map collectives.
 
 Public surface mirrors kmer--1.0.0.sql's 3 types + 11 functions +
 4 operators, re-shaped as a columnar batch API.

@@ -13,8 +13,8 @@ Representation
   C code (kmer.c:54, kmer.c:243) carries over to integer comparisons.
 * A k-mer (k <= 32) packs left-aligned into a 64-bit key: base ``i`` sits
   at bit positions ``[62-2i, 63-2i]``; unused low bits are zero.  On device
-  the key is carried as two uint32 lanes ``(hi, lo)`` — TPUs are 32-bit
-  native — with ``hi`` holding bases 0..15 and ``lo`` bases 16..31.
+  the key is carried as two uint32 lanes ``(hi, lo)`` (JAX runs without
+  x64 mode) with ``hi`` holding bases 0..15 and ``lo`` bases 16..31.
   Lexicographic string order == tuple order ``(key64, length)``.
 * A qkmer is a vector of 4-bit IUPAC one-hot masks over {a,c,g,t}
   (bit b set <=> code b allowed).  ``match(pattern, base)`` of the

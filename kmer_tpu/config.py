@@ -23,9 +23,6 @@ class EngineConfig:
     chunk_reads:  reads per device batch for streaming counts.
     read_len:     padded read length for batched pipelines.
     mesh_shape:   (data, seq) device mesh extents; None = single device.
-    use_pallas:   use the Pallas segment-count kernel for post-sort
-                  counting on TPU (2.3x the XLA scan chain, probe_r2 D);
-                  False forces the XLA path.  Takes effect via activate().
     """
 
     k: int = 21
@@ -33,20 +30,12 @@ class EngineConfig:
     chunk_reads: int = 1 << 17
     read_len: int = 150
     mesh_shape: tuple[int, int] | None = None
-    use_pallas: bool = True
 
     def __post_init__(self):
         if not (0 < self.k <= MAX_K):
             from .errors import InvalidKmerLengthError
 
             raise InvalidKmerLengthError()
-
-    def activate(self) -> "EngineConfig":
-        """Apply runtime-effective settings to the engine (idempotent)."""
-        from .ops.count import set_pallas_counts
-
-        set_pallas_counts(None if self.use_pallas else False)
-        return self
 
     def windows_per_read(self) -> int:
         return self.read_len - self.k + 1

@@ -1,4 +1,4 @@
-"""Sorted radix index — the TPU-native replacement for the SP-GiST trie.
+"""Sorted radix index — the engine's replacement for the SP-GiST trie.
 
 The reference implements a byte-wise radix trie through five SP-GiST
 callbacks driven per-tuple by the Postgres index AM
@@ -21,8 +21,8 @@ contiguous range of a sorted key array:
                    IUPAC mask check over the candidate range.
 
 Index build is a bulk sort (np.lexsort host-side; jax.lax.sort on device)
-instead of per-tuple choose/picksplit inserts — rebuild-on-ingest is the
-idiomatic TPU design (SURVEY.md §3.4).
+instead of per-tuple choose/picksplit inserts — rebuild-on-ingest
+(SURVEY.md §3.4).
 
 Parity contract: index search results equal scan results (kmer-tests.sql
 TEST 14's seq-scan vs index-scan equivalence).
@@ -145,7 +145,7 @@ class KmerIndex:
 # Batched lexicographic binary search over device-resident sorted
 # (hi, lo, length) arrays: 64 fori iterations of a tuple-compare, fully
 # vectorized across a query batch — the device analogue of searchsorted
-# for our 65-bit-wide composite keys (no uint64 needed on TPU).
+# for our 65-bit-wide composite keys (no uint64 lane needed).
 
 
 def _lex_less(ahi, alo, aln, bhi, blo, bln, or_equal):
@@ -229,7 +229,7 @@ def prefix_upper_key(qhi, qlo, qln):
 
     Returns (uhi, ulo, wrapped); wrapped is true where the bound is 2^64
     (the all-t full-length prefix), meaning the range extends to the end.
-    Carried across the two uint32 lanes — no uint64 needed on TPU.
+    Carried across the two uint32 lanes — no uint64 lane needed.
     """
     qhi = jnp.asarray(qhi, jnp.uint32)
     qlo = jnp.asarray(qlo, jnp.uint32)

@@ -26,63 +26,17 @@ class KmerCounter:
         self.config = config
         self._step = jax.jit(self._forward)
         self._sharded_steps: dict[tuple, object] = {}
-        # device-side running max of dense-path bin counts; checked once
-        # at stream end (check_exact) instead of per batch — a per-step
-        # host read of counts.max() would serialize the async stream
-        self._dense_max = None
-        self._fold_max = jax.jit(
-            lambda acc, counts: jnp.maximum(acc, jnp.max(counts))
-        )
 
     # --- single device -------------------------------------------------------
 
     def _forward(self, codes, lengths) -> CountTable:
-        from ..ops.dense_count import DENSE_ROUTE_K, count_kmers_dense
-
-        if self.config.k <= DENSE_ROUTE_K:
-            # MXU dense-histogram path: counting as systolic-array matmuls
-            # (measured faster than the sort only up to DENSE_ROUTE_K)
-            return count_kmers_dense(
-                codes, lengths, self.config.k, self.config.canonical
-            )
         return count_kmers(
             codes, lengths, self.config.k, canonical=self.config.canonical
         )
 
     def step(self, codes, lengths) -> CountTable:
-        """Jitted forward: padded reads [B, L] + lengths [B] -> CountTable.
-
-        Dense-path (k <= DENSE_ROUTE_K) exactness is tracked on device
-        (running bin max, no host sync); call check_exact() after the
-        last step — a per-batch host check would serialize streaming.
-        """
-        from ..ops.dense_count import DENSE_ROUTE_K
-
-        out = self._step(jnp.asarray(codes), jnp.asarray(lengths))
-        if self.config.k <= DENSE_ROUTE_K:
-            acc = (
-                jnp.zeros((), out.counts.dtype)
-                if self._dense_max is None
-                else self._dense_max
-            )
-            self._dense_max = self._fold_max(acc, out.counts)
-        return out
-
-    def check_exact(self) -> None:
-        """Raise if any dense-path bin saturated (f32 exact below 2^24).
-
-        One host sync over the whole stream; a no-op on the sort path
-        (which is exact by construction).
-        """
-        from ..ops.dense_count import DENSE_EXACT_LIMIT
-
-        if self._dense_max is not None:
-            if int(self._dense_max) >= DENSE_EXACT_LIMIT:
-                raise ValueError(
-                    "dense histogram bin reached 2^24: f32 accumulation "
-                    "saturates beyond this — recount via the sort path "
-                    "(count_kmers)"
-                )
+        """Jitted forward: padded reads [B, L] + lengths [B] -> CountTable."""
+        return self._step(jnp.asarray(codes), jnp.asarray(lengths))
 
     # --- multi device --------------------------------------------------------
 

@@ -143,8 +143,8 @@ def rows_packed(codes: np.ndarray, offsets: np.ndarray, width: int,
 
     One native pass: identical to driver.split_long_reads followed by
     pack2bit_rows, without the [rows, width] byte matrix in between
-    (probe_r5a: that assembly + numpy pack was the pipelined feed's
-    bottleneck at 2x the parse cost).  Reads longer than ``width``
+    (that assembly + numpy pack was the pipelined feed's bottleneck at
+    2x the parse cost).  Reads longer than ``width``
     split into pieces sharing a k-1 base overlap; ``width`` must be a
     multiple of 16 and exceed k-1.
     """

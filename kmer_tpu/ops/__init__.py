@@ -13,15 +13,3 @@ from .predicates import (  # noqa: F401
 )
 from .extract import generate_kmers, extract_windows, extract_windows_batch  # noqa: F401
 from .count import count_kmers, count_kmers_jit, CountTable  # noqa: F401
-from .dense_count import DENSE_MAX_K, check_dense_exact, count_kmers_dense  # noqa: F401
-
-
-def count_kmers_auto(reads_codes, lengths, k: int, canonical: bool = False):
-    """Fixed-k counting with automatic kernel choice: MXU dense histogram
-    for small k (4^k bins), sort-based otherwise.  The dense result is
-    guarded against f32 bin saturation (exact below 2^24 per bin)."""
-    if 0 < k <= DENSE_MAX_K:
-        return check_dense_exact(
-            count_kmers_dense(reads_codes, lengths, k, canonical)
-        )
-    return count_kmers_jit(reads_codes, lengths, k, canonical)

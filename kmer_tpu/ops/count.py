@@ -1,21 +1,18 @@
 """Exact k-mer counting — GROUP BY / COUNT / DISTINCT semantics on device.
 
 The reference counts via Postgres HashAggregate (hash opclass,
-kmer--1.0.0.sql:188-192; plan at kmer-tests.sql:1176-1214).  A hash table
-with per-row probes is hostile to a vector machine, so the TPU-native
-design is *sort-based*: lexicographically sort the packed keys with XLA's
-variadic multi-key sort, find segment boundaries, and derive per-segment
-counts positionally — scatter-free.
+kmer--1.0.0.sql:188-192; plan at kmer-tests.sql:1176-1214).  The engine
+is *sort-based*: lexicographically sort the packed keys with XLA's sort
+(a CUB radix sort on the GPU), find segment boundaries, and derive
+per-segment counts positionally — scatter-free.
 
 Table layout ("sorted-run" form): a CountTable's key arrays hold the
 *sorted keys with duplicates in place*; ``counts`` holds each equal-key
-segment's total weight in exactly one slot of that segment (WHICH slot
-is backend-dependent: the XLA path emits it at the segment head, the
-Pallas kernel at the tail) and 0 elsewhere.  Live groups are therefore
-``counts > 0``, in ascending key order.  Consumers must not assume a
-positional relationship between a searchsorted hit and its count slot.
-This avoids the compaction scatters entirely — on TPU a scatter is far
-more expensive than the cumulative scans used here.
+segment's total weight in exactly one slot of that segment (unit-weight
+counts use the head, weighted counts the tail) and 0 elsewhere.  Live groups
+are therefore ``counts > 0``, in ascending key order.  Consumers must
+not assume a positional relationship between a searchsorted hit and its
+count slot.  No compaction runs until a caller trims the table.
 
 Two paths:
 * unit-weight (``count_windows``/``count_kmers``): fixed-k extraction
@@ -63,45 +60,30 @@ class CountTable:
     def trim(self) -> "CountTable":
         """Compact to the live groups (ascending key order), host result.
 
-        Device-resident tables compact ON DEVICE (tag-sort, the
-        _compact_fit pattern) and transfer the live rows as ONE packed
-        array: a single-shot count's table spans its full window-slot
-        capacity (~150M slots), and np.asarray per lane would move
-        ~2.3 GB over the host link just to mask most of it away —
-        live rows are typically <5% of that.
+        Device-resident tables compact ON DEVICE (a live-first sort) and
+        transfer the live rows as ONE packed array: a single-shot count's
+        table spans its full window-slot capacity, and np.asarray per
+        lane would move every dead slot over the host link.  Each copy
+        compacts on its own device, never in a program spanning devices:
+        a replicated table compacts one copy; a sharded table (the
+        partition merge) compacts each shard where it lives, and the
+        shards' ascending runs merge on the host.
         """
-        if isinstance(self.hi, jax.Array) and not isinstance(
-            self.hi, np.ndarray
-        ) and jnp.asarray(self.hi).ndim == 1:
-            cnt = jnp.asarray(self.counts, jnp.int32)
-            live = cnt > 0
-            tag = jnp.where(live, jnp.int32(0), jnp.int32(1))
-            hi = jnp.where(live, jnp.asarray(self.hi, jnp.uint32),
-                           jnp.uint32(SENTINEL))
-            lo = jnp.where(live, jnp.asarray(self.lo, jnp.uint32),
-                           jnp.uint32(SENTINEL))
-            ln = jnp.where(live, jnp.asarray(self.length, jnp.int32),
-                           jnp.int32(SENTINEL_LEN))
-            # 4 keys keep live rows in ascending key order (unstable
-            # 1-key tag sort would scramble them)
-            _, shi, slo, sln, sc = jax.lax.sort(
-                (tag, hi, lo, ln, cnt), num_keys=4, is_stable=False
-            )
-            n = int(jax.device_get(jnp.sum(live.astype(jnp.int32))))
-            packed = jnp.stack([
-                shi[:n],
-                slo[:n],
-                jax.lax.bitcast_convert_type(sln[:n], jnp.uint32),
-                jax.lax.bitcast_convert_type(sc[:n], jnp.uint32),
-            ])  # one transfer RPC (the link charges ~0.2s per RPC)
-            host = np.asarray(jax.device_get(packed), np.uint32)
-            return CountTable(
-                hi=host[0],
-                lo=host[1],
-                length=host[2].view(np.int32),
-                counts=host[3].view(np.int32),
-                n_unique=np.int64(n),
-            )
+        parts = _device_parts(self)
+        if parts is not None:
+            host = []
+            for lanes in parts:
+                packed, n = _live_first(*lanes)
+                host.append(np.asarray(
+                    jax.device_get(packed[:, :int(n)]), np.uint32))
+            host = np.concatenate(host, axis=1)
+            hi, lo = host[0], host[1]
+            ln, cnt = host[2].view(np.int32), host[3].view(np.int32)
+            if len(parts) > 1:
+                order = _host_key_order(hi, lo, ln)
+                hi, lo, ln, cnt = hi[order], lo[order], ln[order], cnt[order]
+            return CountTable(hi=hi, lo=lo, length=ln, counts=cnt,
+                              n_unique=np.int64(hi.size))
         counts = np.asarray(self.counts)
         live = counts > 0
         n = int(live.sum())
@@ -133,6 +115,62 @@ class CountTable:
         return int(self.n_unique)
 
 
+@jax.jit
+def _live_first(hi, lo, length, counts):
+    """([4, n] uint32 lanes hi, lo, length, count with the live rows
+    first in ascending key order, live count) of one device's table."""
+    cnt = jnp.asarray(counts, jnp.int32)
+    live = cnt > 0
+    tag = jnp.where(live, jnp.int32(0), jnp.int32(1))
+    hi = jnp.where(live, jnp.asarray(hi, jnp.uint32), jnp.uint32(SENTINEL))
+    lo = jnp.where(live, jnp.asarray(lo, jnp.uint32), jnp.uint32(SENTINEL))
+    ln = jnp.where(live, jnp.asarray(length, jnp.int32), jnp.int32(SENTINEL_LEN))
+    # 4 keys keep live rows in ascending key order (an unstable 1-key
+    # tag sort would scramble them)
+    _, shi, slo, sln, sc = jax.lax.sort(
+        (tag, hi, lo, ln, cnt), num_keys=4, is_stable=False
+    )
+    packed = jnp.stack([
+        shi, slo,
+        jax.lax.bitcast_convert_type(sln, jnp.uint32),
+        jax.lax.bitcast_convert_type(sc, jnp.uint32),
+    ])
+    return packed, jnp.sum(live.astype(jnp.int32))
+
+
+def _device_parts(t: "CountTable"):
+    """The table's lanes as per-device pieces, in shard order: one copy
+    of a replicated table, every shard of a sharded one.  None for host
+    tables and for lanes that are not 1-D or not laid out alike."""
+    lanes = (t.hi, t.lo, t.length, t.counts)
+    if not all(isinstance(x, jax.Array) and x.ndim == 1 for x in lanes):
+        return None
+    if not t.hi.is_fully_addressable:
+        raise ValueError("trim needs every shard of the table in this process")
+    by_lane = [{(s.index[0].start or 0, s.device): s.data
+                for s in x.addressable_shards} for x in lanes]
+    owner = {}  # piece start -> the device of its first copy
+    for start, dev in by_lane[0]:
+        owner.setdefault(start, dev)
+    parts = []
+    for start in sorted(owner):
+        at = (start, owner[start])
+        if not all(at in p and p[at].shape == by_lane[0][at].shape
+                   for p in by_lane):
+            return None
+        parts.append([p[at] for p in by_lane])
+    return parts
+
+
+def _host_key_order(hi, lo, ln):
+    """Ascending (hi, lo, length) order of host rows made of a few
+    ascending runs (a stable sort merges the runs)."""
+    if ln.size and np.all(ln == ln[0]):
+        key = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        return np.argsort(key, kind="stable")
+    return np.lexsort((ln, lo, hi))
+
+
 def _segment_counts(new, weights=None, bounded=False):
     """Per-segment totals, positionally (scatter-free, gather-free).
 
@@ -149,9 +187,7 @@ def _segment_counts(new, weights=None, bounded=False):
     "The prefix sum at the previous segment's tail" cannot ride a plain
     cummax once the cumsum may wrap (it is no longer monotone), and an
     explicit ``csum[prev_tail]`` lookup would be an arbitrary-index
-    gather — XLA gathers run ~0.1G elt/s on TPU (PERF.md §3; a gather
-    here was measured at 700ms of a 2.7s streaming fold, PERF.md §6).
-    Instead the csum value is *carried through the cummax itself*: eight
+    gather.  Instead the csum value is *carried through the cummax itself*: eight
     uint32 lanes each pack (tail position + 1) << 4 | one csum nibble,
     positions dominate the comparison, so every running max selects the
     latest preceding tail and its low bits deliver that tail's csum
@@ -160,8 +196,7 @@ def _segment_counts(new, weights=None, bounded=False):
     n = new.shape[0]
     if weights is None:
         pos = jnp.arange(n, dtype=jnp.int32)
-        # next segment head strictly after i (n if none); lax.cummin is
-        # the native cumulative op (associative_scan compiles far worse)
+        # next segment head strictly after i (n if none)
         b = jnp.where(new, pos, n)
         sufmin = jax.lax.cummin(b, reverse=True)
         nxt = jnp.concatenate([sufmin[1:], jnp.full((1,), n, jnp.int32)])
@@ -238,16 +273,14 @@ def group_sort_pairs(hi, lo):
     for high-entropy keys (max multiplicity of ~2^27 draws from 2^32
     bins is ~8), so _FIXUP_ITERS even+odd sweeps sort every run.
 
-    Honest end-to-end measurement on v5e, canonical k=21, 136.3M
-    windows (scripts/probe_headline.py; n_unique-synced so nothing is
-    dead-code-eliminated): 533.3ms vs 542.2ms for the 2-key sort — a
-    real but small ~2% win: the 1-key comparator saves ~50ms and the 8
-    sweeps cost ~40ms back (~5ms each).  Two measurement traps are
-    recorded in PERF.md §2: returning only a slice of one output lets
-    XLA eliminate the other lane's movement AND the sweeps (making
-    payloads look free — they are not), and a lax.while_loop with an
-    any(swap) convergence reduction serializes the sweep loop (+200ms).
-    The sweep count must be static.
+    On the H100 the 1-key sort runs as a CUB radix sort of (uint32 key,
+    uint16 payload) pairs; at 136.3M canonical k=21 windows the group
+    sort took 13.8 ms against 90.6 ms for the plain 2-key sort
+    (PERF.md, Findings).  Measurement trap: returning only a slice of
+    one output lets XLA eliminate the other lane's movement AND the
+    sweeps (making payloads look free — they are not); consume every
+    output lane.  The sweep count must be static: a lax.while_loop with
+    an any(swap) convergence reduction serializes the sweep loop.
 
     Two protections keep skewed data (real genomes: a 27x-coverage
     workload has ~27-long equal-hi runs everywhere) from paying the
@@ -257,8 +290,7 @@ def group_sort_pairs(hi, lo):
       (sub-ms) and count duplicate neighbors; more than sample/512
       duplicates routes the whole input straight to the 2-key sort via
       lax.cond (a coverage workload shows thousands of sample
-      duplicates, a uniform one ~2; the cond itself measured free —
-      probe_cond v1 vs v2);
+      duplicates, a uniform one ~2);
     * a final sortedness check that falls back to the 2-key sort when
       some run still exceeds 2*_FIXUP_ITERS (adversarial data the
       sample missed) — exactness never depends on the distribution.
@@ -309,43 +341,6 @@ def group_sort_pairs(hi, lo):
     return jax.lax.cond(skewed, sort2, group, hi, lo)
 
 
-_PALLAS_COUNTS_OVERRIDE: bool | None = None  # None = auto (on when on TPU)
-
-
-def set_pallas_counts(enabled: bool | None) -> None:
-    """Gate the Pallas segment-count kernel (EngineConfig.use_pallas hook).
-
-    None restores auto (kernel on TPU, XLA scans elsewhere); False forces
-    the XLA scan path everywhere; True is the same as auto — the kernel
-    still requires a TPU backend to lower.
-    """
-    global _PALLAS_COUNTS_OVERRIDE
-    _PALLAS_COUNTS_OVERRIDE = enabled
-
-
-def _use_pallas_counts() -> bool:
-    """Post-sort counting backend: Pallas kernel on TPU, XLA scans elsewhere.
-
-    The XLA boundary/cummin/cumsum chain runs at 1621M elt/s in unfused
-    HBM passes; pallas/segment_counts.py does it in one at 3710M
-    (scripts/probe_r2.py D/D2).  Decided at trace time; disable via
-    set_pallas_counts(False) / EngineConfig(use_pallas=False).activate()
-    or KMER_TPU_NO_PALLAS_COUNTS=1.
-    """
-    import os
-
-    if _PALLAS_COUNTS_OVERRIDE is False:
-        return False
-    if os.environ.get("KMER_TPU_NO_PALLAS_COUNTS"):
-        return False
-    try:
-        from ..pallas.segment_counts import _PALLAS_OK
-
-        return _PALLAS_OK and jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
 def count_windows(hi, lo, valid, k: int) -> CountTable:
     """Unit-weight fixed-k counting (the extraction hot path).
 
@@ -371,53 +366,54 @@ def count_windows(hi, lo, valid, k: int) -> CountTable:
         hi = jnp.where(valid, hi, jnp.uint32(SENTINEL))
         lo = jnp.where(valid, lo, jnp.uint32(SENTINEL))
 
+    # lanes: the sorted key lanes, compared to find segment boundaries
     if k <= (15 if masked else 16):
-        (shi,) = jax.lax.sort((hi,), num_keys=1, is_stable=False)
+        with jax.named_scope("sort"):
+            (shi,) = jax.lax.sort((hi,), num_keys=1, is_stable=False)
         slo = jnp.zeros_like(shi)
         # slo is identically 0 (incl. sentinel slots), so the unified
         # sentinel pair compares lo against 0
         sent = (int(SENTINEL), 0) if masked else None
-        neq = lambda: shi[1:] != shi[:-1]  # noqa: E731
+        lanes = (shi,)
     elif k <= (23 if masked else 24):
         lo16 = (lo >> jnp.uint32(16)).astype(jnp.uint16)
-        shi, slo16 = group_sort_pairs(hi, lo16)
+        with jax.named_scope("sort"):
+            shi, slo16 = group_sort_pairs(hi, lo16)
         slo = slo16.astype(jnp.uint32) << jnp.uint32(16)
         sent = (int(SENTINEL), 0xFFFF0000) if masked else None
-        neq = lambda: (shi[1:] != shi[:-1]) | (slo16[1:] != slo16[:-1])  # noqa: E731
+        lanes = (shi, slo16)
     elif k < 32 or not masked:
-        shi, slo = group_sort_pairs(hi, lo)
+        with jax.named_scope("sort"):
+            shi, slo = group_sort_pairs(hi, lo)
         sent = (int(SENTINEL), int(SENTINEL)) if masked else None
-        neq = lambda: (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])  # noqa: E731
+        lanes = (shi, slo)
     else:
         kln = jnp.where(valid, jnp.int32(k), jnp.int32(SENTINEL_LEN))
-        shi, slo, sln = jax.lax.sort((hi, lo, kln), num_keys=3, is_stable=False)
-        new = _boundaries(shi, slo, sln)
-        counts = _segment_counts(new)
-        counts = jnp.where(sln == jnp.int32(SENTINEL_LEN), 0, counts)
-        n_unique = jnp.sum((counts > 0).astype(jnp.int32))
+        with jax.named_scope("sort"):
+            shi, slo, sln = jax.lax.sort((hi, lo, kln), num_keys=3, is_stable=False)
+        with jax.named_scope("segment_counts"):
+            new = _boundaries(shi, slo, sln)
+            counts = _segment_counts(new)
+            counts = jnp.where(sln == jnp.int32(SENTINEL_LEN), 0, counts)
+            n_unique = jnp.sum((counts > 0).astype(jnp.int32))
         return CountTable(hi=shi, lo=slo, length=sln, counts=counts, n_unique=n_unique)
 
-    if _use_pallas_counts():
-        from ..pallas.segment_counts import segment_counts_sorted
-
-        counts, n_unique = segment_counts_sorted(shi, slo, sentinel=sent)
+    with jax.named_scope("segment_counts"):
         if masked:
             is_sent = (shi == jnp.uint32(sent[0])) & (slo == jnp.uint32(sent[1]))
             sln = jnp.where(is_sent, jnp.int32(SENTINEL_LEN), jnp.int32(k))
         else:
             sln = jnp.full(shi.shape, k, jnp.int32)
-        return CountTable(hi=shi, lo=slo, length=sln, counts=counts, n_unique=n_unique)
-
-    new = jnp.concatenate([jnp.ones((1,), bool), neq()])
-    counts = _segment_counts(new)
-    if masked:
-        is_sent = (shi == jnp.uint32(sent[0])) & (slo == jnp.uint32(sent[1]))
-        counts = jnp.where(is_sent, 0, counts)
-        sln = jnp.where(is_sent, jnp.int32(SENTINEL_LEN), jnp.int32(k))
-        n_unique = jnp.sum((counts > 0).astype(jnp.int32))
-    else:
-        sln = jnp.full(shi.shape, k, jnp.int32)
-        n_unique = jnp.sum(new.astype(jnp.int32))
+        neq = lanes[0][1:] != lanes[0][:-1]
+        for lane in lanes[1:]:
+            neq = neq | (lane[1:] != lane[:-1])
+        new = jnp.concatenate([jnp.ones((1,), bool), neq])
+        counts = _segment_counts(new)
+        if masked:
+            counts = jnp.where(is_sent, 0, counts)
+            n_unique = jnp.sum((counts > 0).astype(jnp.int32))
+        else:
+            n_unique = jnp.sum(new.astype(jnp.int32))
     return CountTable(hi=shi, lo=slo, length=sln, counts=counts, n_unique=n_unique)
 
 
@@ -431,7 +427,7 @@ def count_packed(hi, lo, length, weights,
     ``bounded_weights=True`` asserts the total weight of the call fits
     int32 (true for unit/validity weights over < 2^31 rows): the cheaper
     monotone-cummax segment totals apply and the 2^28-row wrap-safety
-    limit does not (ADVICE r4: count_column over a >=268M-row column).
+    limit does not (count_column over a >=268M-row column).
     """
     hi = jnp.asarray(hi, jnp.uint32).ravel()
     lo = jnp.asarray(lo, jnp.uint32).ravel()

@@ -5,8 +5,7 @@ The reference emits one kmer per Postgres executor call in an SRF loop
 batched, fully-vectorized transform: for a code stream of length n and a
 static k, all ``n-k+1`` windows are produced at once as packed (hi, lo)
 lanes via k shifted adds — no scan, no data-dependent control flow, so XLA
-fuses it with downstream counting/predicates.  A Pallas kernel version of
-the same computation lives in kmer_tpu/pallas_kernels/.
+fuses it with downstream counting/predicates.
 
 Contract (SURVEY.md §2.4 #7): windows are emitted left-to-right, duplicates
 preserved; errors for k <= 0, k > 32, or k > len(dna) use the reference's

@@ -4,8 +4,8 @@ Per-batch counts are int32-safe by construction (a segment's count is
 bounded by the batch's array size < 2^31), but a long-running
 accumulator — pod-scale streaming (BASELINE configs[3]), or one skewed
 poly-A genome — overflows int32 within minutes at north-star rates.
-JAX's int64 needs global x64 mode (which drags f64 onto TPU, where it
-is unsupported), so the TPU-native fix is explicit pair arithmetic:
+JAX's int64 needs global x64 mode (which changes every default dtype
+of the program), so the fix is explicit pair arithmetic:
 a count is ``hi * 2**32 + lo`` with ``hi: int32`` / ``lo: uint32`` lanes
 and carry/borrow handled in uint32 compares.  All ops are jit-safe and
 exact up to 2^63 totals.
@@ -105,9 +105,7 @@ class WideCounts:
             front_ok = bool(live[:n].all()) if n else True
             rest_ok = not bool(live[n:].any())
             if front_ok and rest_ok:
-                # one packed transfer RPC for all five lanes (the host
-                # link charges ~0.2s fixed per transfer; five separate
-                # n-row fetches paid that five times)
+                # one device-to-host transfer for all five lanes
                 packed = jnp.stack([
                     jnp.asarray(self.hi[:n], jnp.uint32),
                     jnp.asarray(self.lo[:n], jnp.uint32),
@@ -252,14 +250,12 @@ def _narrow_to_cap(keys: tuple, cnt, cap: int, nkeys: int) -> tuple:
     their all-ones sentinels; ``cnt`` holds each live group's total (>0)
     and 0 at dead slots.  Returns (*keys, cnt) compacted.
 
-    Full path: one narrowing sort over all n rows — measured at 350ms of
-    the 668ms r3 streaming fold (PERF.md §6), i.e. a second sort of the
-    whole batch purely to move ~1.5%-dense live heads to the front.
+    Full path: one narrowing sort over all n rows, i.e. a second sort of
+    the whole batch purely to move ~1.5%-dense live heads to the front.
 
     Blocked path (high-duplication data, the streaming steady state):
-    sort each 32-row block along its own axis — batched row sorts run
-    ~an order of magnitude above the global sort's rate (PERF.md §5.1)
-    — then keep only each block's first 8 rows, which hold ALL its live
+    sort each 32-row block along its own axis — batched row sorts of
+    short rows are cheaper than one global sort — then keep only each block's first 8 rows, which hold ALL its live
     heads whenever no block has more than 8 (live heads on a coverage
     genome are sparse in the sorted run), and run the narrowing sort on
     that 4x-smaller candidate array.  A per-block live-count maximum is
@@ -317,18 +313,15 @@ def fold_windows_into_wide(acc: WideCounts, hi, lo, valid, k: int) -> WideCounts
     """Fold raw extraction windows into a wide accumulator — the
     single-device streaming hot path.
 
-    Measured composition (scripts/probe_step2.py, v5e, 68M windows into
-    a 4M-slot accumulator): count the batch with the production engine
-    (group sort + Pallas segment counts, 257ms), tag-compact the
-    sorted-run table down to ``acc.capacity`` slots (one narrowed sort,
-    350ms — dead slots fold to sentinel keys, which real keys cannot
-    equal below k=32), then merge two COMPACTED tables (2*cap rows,
-    67ms).  Both merge sources are per-key-deduplicated, so a segment
-    has at most two slots and totals are one neighbor pair-add — no
-    64-bit cumsum, no tag lane (addition commutes), and crucially none
-    of the weighted-``_segment_counts`` ``csum[end]`` gather that made
-    the naive fused one-sort fold 2.7s (XLA gathers run ~0.1G elt/s,
-    PERF.md §3/§5).
+    Composition: count the batch with the production engine (group
+    sort + segment counts), tag-compact the sorted-run table down to
+    ``acc.capacity`` slots (one narrowed sort — dead slots fold to
+    sentinel keys, which real keys cannot equal below k=32), then merge
+    two COMPACTED tables (2*cap rows).  Both merge sources are per-key-
+    deduplicated, so a segment has at most two slots and totals are one
+    neighbor pair-add — no 64-bit cumsum, no tag lane (addition
+    commutes), and none of the weighted-``_segment_counts``
+    ``csum[end]`` gather of a naive fused one-sort fold.
 
     Sort lanes narrow by k: hi-only for k <= 15, (hi, lo16) for
     k <= 23, (hi, lo) for k <= 31; k == 32 adds the length lane
@@ -593,10 +586,15 @@ def merge_runs(runs: list[WideCounts], prefer_device: bool = True) -> WideCounts
     cl = np.concatenate([np.asarray(t.counts_lo, np.uint32) for t in trims])
     n = hi.size
     if prefer_device and n <= _DEVICE_MERGE_MAX_ROWS:
-        merged = count_packed_wide(
-            jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(ln),
-            jnp.asarray(ch), jnp.asarray(cl), capacity=n,
-        )
+        # one compiled program, padded to a power of two (zero-weight
+        # slots are absent) so merges of similar sizes share it
+        m = max(1024, 1 << (n - 1).bit_length())
+
+        def pad(x):
+            return jnp.asarray(np.concatenate([x, np.zeros(m - n, x.dtype)]))
+
+        merged = _count_packed_wide_jit(
+            pad(hi), pad(lo), pad(ln), pad(ch), pad(cl), capacity=m)
         return merged.trim()
     c64 = (ch.astype(np.int64) << np.int64(32)) + cl.astype(np.int64)
     order = np.lexsort((ln, lo, hi))
@@ -614,6 +612,7 @@ def merge_runs(runs: list[WideCounts], prefer_device: bool = True) -> WideCounts
 
 
 _merge_into_wide_jit = jax.jit(merge_into_wide)
+_count_packed_wide_jit = jax.jit(count_packed_wide, static_argnames=("capacity",))
 _pad_wide_jit = jax.jit(pad_wide, static_argnames=("capacity",))
 
 

@@ -2,7 +2,7 @@
 
 A column of N kmers is a struct-of-arrays ``PackedKmers(hi, lo, length)``:
 two uint32 lanes holding the left-aligned 64-bit key (hi = bases 0..15,
-lo = bases 16..31) plus an int32 length.  This is the TPU-native
+lo = bases 16..31) plus an int32 length.  This is the engine's
 replacement for the reference's per-row varlena heap tuples: everything
 downstream (predicates, counting, indexing, collectives) operates on these
 three dense arrays.

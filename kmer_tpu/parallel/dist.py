@@ -3,7 +3,7 @@
 Green-field layer (the reference is single-process; SURVEY.md §2.2).
 Design per BASELINE.json: read batches stream data-parallel, the
 sequence axis shards with a k-1 halo exchange between ring neighbors
-(jax.lax.ppermute over ICI), per-shard count tables are built with the
+(jax.lax.ppermute), per-shard count tables are built with the
 local sort-based kernel, and tables merge via collectives.
 
 Two merge strategies:
@@ -17,14 +17,14 @@ Two merge strategies:
   recount locally.  Each device ends up owning a disjoint hash range of
   the global table (reduce-scatter shape): per-device memory is
   ~slack × local size regardless of device count, which is the
-  pod-scale path.  Bucket routing is a pure gather (sort by bucket +
+  path for many devices.  Bucket routing is a pure gather (sort by bucket +
   searchsorted offsets) — no scatter anywhere.  Fixed per-bucket
   capacity means pathological skew can overflow; the step reports a
   replicated overflow counter (0 in any sane configuration) so callers
   can detect and re-run with more slack or the gather path.
 
-All collective code is pure shard_map + lax collectives: no NCCL/MPI
-analogue exists or is needed — XLA lowers these to ICI/DCN transfers.
+All collective code is pure shard_map + lax collectives; XLA lowers them
+to NCCL over NVLink between the cards of one host.
 """
 
 from __future__ import annotations
@@ -103,7 +103,8 @@ def _bucket_of(hi, lo, length, n_parts: int):
     return (h % jnp.uint32(n_parts)).astype(jnp.int32)
 
 
-def _partition_merge_local(table: CountTable, n_parts: int, cap: int, axes):
+def _partition_merge_local(table: CountTable, n_parts: int, cap: int, axes,
+                           bounded: bool = False):
     """all_to_all merge of per-device sorted-run tables (device-local body).
 
     Routes each live group to device ``hash(key) % n_parts`` via a
@@ -115,6 +116,7 @@ def _partition_merge_local(table: CountTable, n_parts: int, cap: int, axes):
     4. one all_to_all swaps bucket b to device b;
     5. weighted recount of the received groups.
 
+    ``bounded``: the received weights total < 2^31 (see count_packed).
     Returns (local shard of the global table, global overflow count).
     Buckets larger than ``cap`` lose their tail — reported in overflow,
     which callers must check (exactness contract).
@@ -145,7 +147,7 @@ def _partition_merge_local(table: CountTable, n_parts: int, cap: int, axes):
         jax.lax.all_to_all(x, axes, split_axis=0, concat_axis=0)
         for x in (send_hi, send_lo, send_ln, send_ct)
     ]
-    merged = count_packed(*recv)
+    merged = count_packed(*recv, bounded_weights=bounded)
     merged = dataclasses.replace(
         merged, n_unique=jax.lax.psum(merged.n_unique, axes)
     )
@@ -171,18 +173,23 @@ def make_sharded_count_step(
     axes = (AXIS_DATA, AXIS_SEQ)
 
     def local_step(codes_l, lengths_l):
+        # every weight the merge recounts is a window count of this one
+        # global batch, so the recount's total fits int32 (the cheaper
+        # bounded segment totals, with no 2^28-row limit) whenever the
+        # batch has fewer than 2^31 base slots
+        bounded = codes_l.shape[0] * dp * codes_l.shape[1] * sp < 1 << 31
         hi, lo, valid = _extract_with_halo(codes_l, lengths_l, k, sp, canonical)
         table = count_windows(hi, lo, valid, k)
         if merge == "partition":
             n = table.hi.shape[0]
             cap = max(8, int(slack * n / n_parts + 1))
-            return _partition_merge_local(table, n_parts, cap, axes)
+            return _partition_merge_local(table, n_parts, cap, axes, bounded)
         # gather: deduplicated local tables over both axes, then recount
         ghi = jax.lax.all_gather(table.hi, axes, tiled=True)
         glo = jax.lax.all_gather(table.lo, axes, tiled=True)
         gln = jax.lax.all_gather(table.length, axes, tiled=True)
         gct = jax.lax.all_gather(table.counts, axes, tiled=True)
-        return count_packed(ghi, glo, gln, gct)
+        return count_packed(ghi, glo, gln, gct, bounded_weights=bounded)
 
     if merge == "partition":
         sharded_spec = P((AXIS_DATA, AXIS_SEQ))

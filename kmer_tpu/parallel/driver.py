@@ -272,7 +272,7 @@ def run_distcount(
     wacc, wovf = step(wacc, wovf, gzc, gzl)
     jax.block_until_ready(wacc.counts_lo)
     # single-process runs checkpoint through the packed snapshotter
-    # (one transfer RPC, uncompressed, live slots only); multi-process
+    # (one transfer, uncompressed, live slots only); multi-process
     # keeps the addressable-shard path
     snapper = (
         _StreamSnapshotter(int(np.prod(mesh_shape)), acc_capacity)

@@ -2,12 +2,15 @@
 
 The reference has no parallelism of any kind (SURVEY.md §2.2) — this
 layer is green-field, specified by BASELINE.json: data-parallel read
-streaming + sequence sharding over ICI, expressed as a 2D
+streaming + sequence sharding, expressed as a 2D
 ``("data", "seq")`` jax mesh.
 
 "data" shards read batches (DP); "seq" shards the base-position axis of
 long sequences (the k-mer analogue of sequence/context parallelism, with
 a k-1 halo exchange between neighbors — SURVEY.md §5.7).
+
+Devices are taken in ``jax.devices()`` order with no topology: the cards
+of one host are joined all to all by NVLink, so any order is as good.
 """
 
 from __future__ import annotations

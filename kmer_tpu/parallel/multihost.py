@@ -1,13 +1,15 @@
-"""Multi-host process-group initialization and DCN-aware meshes.
+"""Multi-process group initialization and the all-device mesh.
 
-For pod-slice runs (BASELINE.json configs[3]: N>=2 hosts): each host
-process calls ``initialize_multihost()`` (a thin wrapper over
+For multi-process runs (BASELINE.json configs[3]): each process calls
+``initialize_multihost()`` (a thin wrapper over
 ``jax.distributed.initialize``), then builds a mesh whose "data" axis
-spans hosts (collectives ride DCN across pods, ICI within a slice —
-jax orders mesh axes so the innermost axis maps to ICI neighbors).
+spans every device of every process.  On GPUs each process drives one
+card: a multi-process GPU run that sees more than one local device is
+refused, because every JAX process reserves most of each card it opens
+(launch each process with ``CUDA_VISIBLE_DEVICES`` set to its card).
 
-Single-host runs skip initialization and work unchanged; CI exercises
-the same shard_map code on a virtual CPU mesh (tests/conftest.py).
+Single-process runs skip initialization and work unchanged; the tests
+run the same shard_map code on a virtual CPU mesh (tests/conftest.py).
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ def initialize_multihost(
 ) -> bool:
     """Initialize the jax distributed runtime; returns True if multi-host.
 
-    With no arguments, relies on the environment (TPU pod metadata or
+    With no arguments, relies on the environment (cluster metadata or
     JAX_COORDINATOR_ADDRESS etc.) and degrades to single-process mode
     with a logged warning if that auto-detection fails.  When any
     argument is given explicitly — i.e. the caller *asked* for a
-    specific pod topology — a failure raises instead of silently
+    specific topology — a failure raises instead of silently
     shrinking the job to one process (strict defaults to True then;
     pass strict=False to opt back into best-effort).
     """
@@ -46,7 +48,6 @@ def initialize_multihost(
             process_id=process_id,
             initialization_timeout=timeout_s,
         )
-        return jax.process_count() > 1
     except Exception as e:
         if strict:
             raise RuntimeError(
@@ -61,10 +62,26 @@ def initialize_multihost(
             e,
         )
         return False
+    check_one_card_per_process()
+    return jax.process_count() > 1
+
+
+def check_one_card_per_process() -> None:
+    """Refuse a multi-process GPU run in which a process sees several cards.
+
+    Each JAX process reserves most of every card it opens, so two
+    processes that both open all the cards of a host starve each other.
+    """
+    if (jax.process_count() > 1 and jax.default_backend() == "gpu"
+            and jax.local_device_count() > 1):
+        raise RuntimeError(
+            f"process {jax.process_index()} of {jax.process_count()} sees "
+            f"{jax.local_device_count()} GPUs; run one process per card "
+            "(set CUDA_VISIBLE_DEVICES to one card for each process)")
 
 
 def make_pod_mesh(seq_parallel: int | None = None) -> jax.sharding.Mesh:
-    """Mesh over every device in the pod slice (all processes)."""
+    """Mesh over every device of every process."""
     n = len(jax.devices())
     return make_mesh(mesh_shape_for(n, seq_parallel))
 

@@ -2,8 +2,8 @@
 
 The reference's query path is a single-backend scan or index scan; the
 engine's multi-device equivalent shards the column over the "data" mesh
-axis, evaluates the vectorized predicate locally (pure VPU ops), and
-gathers per-shard hit masks with an all_gather over ICI — the
+axis, evaluates the vectorized predicate locally (elementwise ops), and
+gathers per-shard hit masks with an all_gather — the
 "query-result gathers via collectives" of BASELINE.json.
 """
 
@@ -35,7 +35,7 @@ def make_filter_step(mesh, op: str, query) -> "callable":
 
     op: "eq" | "prefix" | "pattern"; query: Kmer/Qkmer literal.
     The column shards over "data"; the result mask is replicated
-    (all_gather over ICI).
+    (all_gather).
     """
     if op in ("eq", "prefix"):
         qhi, qlo, qln = _scalar_query(Kmer(query))

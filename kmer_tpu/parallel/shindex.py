@@ -1,10 +1,10 @@
-"""Sharded index serving — the pod-scale SP-GiST replacement.
+"""Sharded index serving — the multi-device SP-GiST replacement.
 
 The reference's SP-GiST trie serves one query at a time inside a single
 Postgres backend (/root/reference/kmer_spgist.c:339-566).  The
 single-device analogue is DeviceIndex (kmer_tpu/index.py); this module
-scales it over a device mesh for BASELINE configs[4] ("index build on
-full pod slice"):
+scales it over a device mesh for BASELINE configs[4] (index build
+across devices):
 
 * **Build**: the column shards over the "data" axis and every device
   sorts its own shard locally (one lax.sort per device, no global
@@ -14,7 +14,7 @@ full pod slice"):
   with a local lexicographic binary search (the same
   ``searchsorted_packed`` as single-device serving) and materializes up
   to ``cap`` candidate rows; the per-shard (range, rows) results travel
-  once over ICI via the all_gather implied by the replicated output
+  once via the all_gather implied by the replicated output
   spec.  A query's global answer is the union of its per-shard answers
   (global row ids are stored in the shard).
 

@@ -1,10 +1,8 @@
-"""Pipelined disk-to-table counting — the single-chip operational path.
+"""Pipelined disk-to-table counting — the single-device operational path.
 
-VERDICT r4's headline gap: the proven 169M k-mers/s streaming engine
-(PERF.md §7) was fed by `count_read_stream` at 0.6–2.5M k-mers/s in
-every published real-file run — below the reference's own Postgres
-HashAggregate rate (kmer-tests.sql:1205-1214).  probe_r5a decomposed
-the wall (PERF.md §8); this module is the rebuild:
+A generic per-batch count + accumulator re-sort (``streaming.py``) is
+bound by its host feed; this module overlaps every host stage with the
+device:
 
 * **Producer thread** parses, assembles, and 2-bit-packs fixed-shape
   read batches (native MT parsers; ctypes calls drop the GIL) while the
@@ -13,9 +11,8 @@ the wall (PERF.md §8); this module is the rebuild:
 * **Packed wire**: batches upload as [B, W/16] uint32 words
   (0.25 B/base) and unpack on device, fused into the extraction.
 * **One fused step** per batch: unpack → extract windows → canonicalize
-  → `fold_windows_into_wide` (the blocked-compact fold the sustained
-  engine uses, 395 ms per 68M windows on v5e) — replacing the per-batch
-  count + full 3-key accumulator re-sort of the old path.
+  → `fold_windows_into_wide` (the blocked-compact fold) — in place of a
+  per-batch count + full 3-key accumulator re-sort.
 * **Revert-and-replay exactness**: the fold drops keys only when the
   merged distinct count exceeds capacity; the step detects that IN
   GRAPH and reverts to the pre-batch accumulator, flagging a carried
@@ -66,9 +63,7 @@ def _make_fold_step(k: int, canonical: bool, width: int):
     input accumulator unchanged, and state[_S_FAIL] says which.
 
     Cached by (k, canonical, width): a fresh ``jax.jit`` object per
-    call would recompile the ~35s step graph on EVERY count_file run
-    (probe_r5b caught exactly this — the "warm" run was as slow as the
-    cold one).
+    call would recompile the step graph on EVERY count_file run.
     """
     from .native import device_unpack_rows
     from .ops.extract import canonicalize as canon
@@ -100,9 +95,7 @@ def _make_fold_step(k: int, canonical: bool, width: int):
 
 def _combine(words: np.ndarray, lengths) -> np.ndarray:
     """One wire array per batch: [B, W/16 + 1] uint32 with the row
-    lengths riding in the last column — this environment's host link
-    charges ~0.2s fixed per transfer RPC (PERF.md §7 item 2), so a
-    separate lengths upload per batch cost more than its bytes."""
+    lengths riding in the last column, so each batch is one upload."""
     b, nw = words.shape
     combo = np.empty((b, nw + 1), np.uint32)
     combo[:, :nw] = words
@@ -116,8 +109,8 @@ class _Feeder(threading.Thread):
 
     Runs the parse/assemble/pack pipeline concurrently with device
     dispatch — the native parsers and numpy packing release the GIL for
-    their bulk work, and the main loop spends most of its time in
-    (GIL-free) runtime RPCs, so the two genuinely overlap."""
+    their bulk work, and the main loop spends most of its time waiting
+    on the device, so the two genuinely overlap."""
 
     def __init__(self, batches: Iterable, skip: int, depth: int,
                  combine: bool = True):
@@ -617,9 +610,11 @@ def auto_width(lengths: np.ndarray, cap: int = 1024) -> int:
 
 
 def auto_batch(width: int, k: int, target_windows: int = 1 << 26) -> int:
-    """Reads per step sized so a step carries ~64M window slots — the
-    probe_r4d knee (512k reads x 150bp; larger batches lose to the
-    count sort's n·log n growth, smaller ones to fixed dispatch cost)."""
+    """Reads per step sized so a step carries ~64M window slots (512k
+    reads x 150 bp): larger batches grow every step's sort, smaller ones
+    pay fixed dispatch cost per step.  The streaming fold step at this
+    size keeps its sort operands and accumulator well inside one card's
+    memory; the value is not tuned for the H100 yet."""
     per = max(width - k + 1, 1)
     b = max(1, target_windows // per)
     return max(4096, min(1 << 20, 1 << int(b - 1).bit_length()))
@@ -759,9 +754,12 @@ def column_batch_feed(seqs, k: int, batch: int | None = None,
     return gen(), batch, width
 
 
-# single-shot ceiling in window SLOTS: buffers + count-sort operands at
-# this size are ~2.7 GB HBM transient — the headline engine's shape
-# (PERF.md §1 runs it at 136M)
+# single-shot ceiling in window SLOTS.  It bounds the route to files whose
+# every window fits one device buffer, and keeps total windows < 2^31 so
+# int32 counts stay exact.  At 146.8M slots (configs[1]'s 2^20 reads x
+# 150 bp) the compiled count step needs 1.32 GB of arguments, 2.35 GB of
+# output and 1.20 GB of temporaries (memory_analysis on an H100 80GB
+# HBM3, PERF.md) — far inside one card.
 _SINGLE_SHOT_MAX = 150 * 1000 * 1000
 
 
@@ -803,8 +801,8 @@ def _count_single_shot(feed, k: int, canonical: bool, batch: int,
     """One-count route for files whose windows fit a single device
     buffer: upload packed batches as they arrive (overlapping the
     parse), extract+place each into flat window buffers, then run ONE
-    count — the headline engine's shape (255M k-mers/s on v5e), with
-    none of the per-batch accumulator fold's merge sorts.  Returns a
+    count — the benchmark's fused shape, with none of the per-batch
+    accumulator fold's merge sorts.  Returns a
     CountTable (int32 counts are exact: total windows < 2^31 here by
     construction)."""
     global _count_windows_jit
@@ -815,8 +813,7 @@ def _count_single_shot(feed, k: int, canonical: bool, batch: int,
                                      static_argnames=("k",))
     # producer-thread prefetch: without it the parse and the uploads
     # SERIALIZE (each batch parses, then transfers) — overlapping them
-    # hides the smaller of the two entirely (probe_r5e: feed ~1.3-2.3s
-    # vs upload ~2.6-3.1s on the 313 MB file)
+    # hides the smaller of the two entirely
     feeder = _Feeder(feed, 0, depth=3)
     feeder.start()
     spb = batch * (width - k + 1)
@@ -830,7 +827,7 @@ def _count_single_shot(feed, k: int, canonical: bool, batch: int,
             raise item
         if (len(dev) + 1) * spb > ceiling:
             # the first-chunk extrapolation undershot (e.g. a sparse
-            # file head): allocating past the ceiling risks HBM OOM and
+            # file head): allocating past the ceiling risks device OOM and
             # the int32-exactness bound — reroute to the streaming fold
             feeder.stop()
             raise _SingleShotOverflow()

@@ -1,6 +1,6 @@
 """Scalar value types: Dna, Kmer, Qkmer.
 
-TPU-native replacements for the reference's varlena SQL types
+The engine's replacements for the reference's varlena SQL types
 (/root/reference/kmer.h:8-15, kmer.c:84-199, kmer--1.0.0.sql:15-56).
 Where the reference stores lowercase ASCII bytes in a varlena, we store
 2-bit codes (Dna/Kmer) or 4-bit IUPAC masks (Qkmer); ``str()`` is the
@@ -156,7 +156,7 @@ class Qkmer:
     def leading_exact_codes(self) -> np.ndarray:
         """Codes of the longest determinate (single-nucleotide) leading run.
 
-        Used for index-search pruning: the TPU analogue of the SP-GiST
+        Used for index-search pruning: the analogue of the SP-GiST
         inner_consistent prefix pruning (kmer_spgist.c:395-444).
         """
         out = []

@@ -32,9 +32,9 @@ def atomic_savez(path: str, compress: bool = True, **arrays) -> None:
     blocks, leaving a truncated file under the final name after power
     loss.
 
-    ``compress=False`` skips zlib: measured ~1s per 20 MB checkpoint on
-    the streaming path (scripts/probe_r4b.py) for a 2x size saving —
-    in-loop checkpoints choose speed, final tables choose size.
+    ``compress=False`` skips zlib (about 1 s per 20 MB checkpoint for a
+    2x size saving): in-loop checkpoints choose speed, final tables
+    choose size.
     """
     d = os.path.dirname(os.path.abspath(path)) or "."
     import tempfile

@@ -1,14 +1,17 @@
 """Tracing / profiling helpers.
 
-TPU-native replacement for the reference's reliance on EXPLAIN ANALYZE
-(SURVEY.md §5.1): jax.profiler trace annotations around pipeline phases
-plus simple wall-clock phase accounting with bytes/s reporting against
-a speed-of-light budget.
+The engine's analogue of the reference's EXPLAIN ANALYZE (SURVEY.md
+§5.1): jax.profiler trace annotations around pipeline phases, wall-clock
+phase accounting with bytes/s against a speed-of-light budget, and the
+reduction of a device trace to time per named scope.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import glob
+import os
 import time
 
 import jax
@@ -49,3 +52,36 @@ def phase_timer(profile: Profile | None, name: str, nbytes: int = 0, sync=None):
         profile.phases[name] = profile.phases.get(name, 0.0) + dt
         if nbytes:
             profile.bytes[name] = profile.bytes.get(name, 0) + nbytes
+
+
+def device_time_by_scope(trace_dir: str) -> dict[tuple[str, str], float]:
+    """Device kernel time (ms) per (jitted module, top-level named scope).
+
+    Reads the newest ``*.xplane.pb`` under ``trace_dir`` (written by
+    ``jax.profiler.trace``) and sums the durations of the events on the
+    device planes.  The scope is the first ``jax.named_scope`` inside
+    the jitted function (ops/count.py names ``sort`` and
+    ``segment_counts``), or the op's own name outside any scope; kernels
+    XLA generated with no source op fall under ``"?"``.  XLA:GPU's
+    command buffers hide the kernels inside them: trace with
+    ``XLA_FLAGS=--xla_gpu_enable_command_buffer=`` to attribute them.
+    """
+    import jax
+
+    paths = glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
+                      recursive=True)
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb under {trace_dir}")
+    data = jax.profiler.ProfileData.from_file(max(paths, key=os.path.getmtime))
+    out: dict = collections.defaultdict(float)
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        for line in plane.lines:
+            for ev in line.events:
+                stats = dict(ev.stats)
+                parts = str(stats.get("name", "")).split("/")
+                scope = parts[1] if len(parts) > 1 else "?"
+                out[(str(stats.get("hlo_module", "?")), scope)] += (
+                    ev.duration_ns / 1e6)
+    return dict(out)

@@ -4,7 +4,7 @@
  *
  * The reference implements its hot host paths in C inside a Postgres
  * backend (validate_sequence at kmer.c:20-41; per-tuple text I/O at
- * kmer.c:84-199).  The TPU engine's equivalent native layer is this
+ * kmer.c:84-199).  The engine's equivalent native layer is this
  * data loader: it turns raw ASCII read files into dense 2-bit code
  * arrays at memory bandwidth so the host never bottlenecks the device
  * pipeline.  Exposed to Python via ctypes (kmer_tpu/native.py); every
@@ -470,8 +470,8 @@ static long long kn_reads_encode_mt(const char *buf, long long n,
  * overlap — semantics identical to kmer_tpu.parallel.driver.
  * split_long_reads followed by native.pack2bit_rows (the numpy
  * fallback), but without materializing the [rows, width] byte matrix
- * (probe_r5a measured that assembly + numpy packing at 2x the parse
- * cost — it was the feed bottleneck of the pipelined count).
+ * (that assembly + numpy packing cost 2x the parse — it was the feed
+ * bottleneck of the pipelined count).
  */
 
 typedef struct {

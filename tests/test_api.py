@@ -117,9 +117,7 @@ class TestCli:
             capture_output=True, text=True, cwd=cwd, timeout=300,
             env={
                 **__import__("os").environ,
-                "JAX_PLATFORMS": "cpu",
-                "KMER_TPU_FORCE_CPU": "1",
-            },
+                "JAX_PLATFORMS": "cpu"},
         )
 
     def test_extract_cli(self):
@@ -223,7 +221,7 @@ class TestCli:
             [sys.executable, "-m", "kmer_tpu", "serve", "--input", str(csv)],
             input="EQ acga\nPREFIX a\nPATTERN nn\nCOUNT\nBOGUS\nEQ not-dna\nQUIT\n",
             capture_output=True, text=True, cwd="/root/repo", timeout=300,
-            env={**os.environ, "JAX_PLATFORMS": "cpu", "KMER_TPU_FORCE_CPU": "1"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         assert p.returncode == 0, p.stderr
         lines = [json.loads(ln) for ln in p.stdout.strip().splitlines()]
@@ -257,8 +255,7 @@ class TestCli:
             [sys.executable, "-m", "kmer_tpu", "serve", "--input", str(csv)],
             input=cmds, capture_output=True, text=True, cwd="/root/repo",
             timeout=300,
-            env={**os.environ, "JAX_PLATFORMS": "cpu",
-                 "KMER_TPU_FORCE_CPU": "1"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         assert p.returncode == 0, p.stderr
         lines = [json.loads(ln) for ln in p.stdout.strip().splitlines()]
@@ -286,8 +283,7 @@ class TestCli:
         csv = tmp_path / "t.csv"
         wal = str(tmp_path / "serve.wal")
         rows_to_csv(generate_test_rows(10, seed=3), str(csv))
-        env = {**os.environ, "JAX_PLATFORMS": "cpu",
-               "KMER_TPU_FORCE_CPU": "1"}
+        env = {**os.environ, "JAX_PLATFORMS": "cpu"}
         p = subprocess.Popen(
             [sys.executable, "-m", "kmer_tpu", "serve", "--input",
              str(csv), "--wal", wal],
@@ -340,8 +336,7 @@ class TestCli:
             [sys.executable, "-m", "kmer_tpu", "serve", "--input",
              str(csv), "--tcp", "0"],
             stdout=subprocess.PIPE, text=True, cwd="/root/repo",
-            env={**os.environ, "JAX_PLATFORMS": "cpu",
-                 "KMER_TPU_FORCE_CPU": "1"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         try:
             ready = json.loads(p.stdout.readline())
@@ -411,8 +406,7 @@ class TestCli:
                         "row": ["acgt", "acgt", "acgt"]}) + "\n"
             + '{"op": "insert", "row": ["tt'  # torn mid-write
         )
-        env = {**os.environ, "JAX_PLATFORMS": "cpu",
-               "KMER_TPU_FORCE_CPU": "1"}
+        env = {**os.environ, "JAX_PLATFORMS": "cpu"}
         # restart #1: replays the good entry, truncates the torn tail,
         # then appends a NEW acknowledged mutation
         q = subprocess.run(
@@ -458,8 +452,7 @@ class TestCli:
              str(csv), "--wal", str(wal)],
             input="COUNT\nQUIT\n", capture_output=True, text=True,
             cwd="/root/repo", timeout=300,
-            env={**os.environ, "JAX_PLATFORMS": "cpu",
-                 "KMER_TPU_FORCE_CPU": "1"},
+            env={**os.environ, "JAX_PLATFORMS": "cpu"},
         )
         assert q.returncode == 0, q.stderr
         lines = [json.loads(ln) for ln in q.stdout.strip().splitlines()]

@@ -39,7 +39,9 @@ class TestBenchHarness:
         for ph in r["detail"]["phases"].values():
             assert ph["ms"] > 0 and ph["gb_per_s"] >= 0
         assert r["detail"]["phases_sum_ms"] > 0
-        assert r["detail"]["hbm_sol_bytes_per_s"] > 0
+        # no published peak for a CPU: the share is omitted, not assumed
+        assert "hbm_sol_bytes_per_s" not in r["detail"]
+        assert all("pct_sol" not in ph for ph in r["detail"]["phases"].values())
 
     def test_stream_mode_matches_fused(self):
         a = run_bench(n_reads=512, read_len=48, k=21)
@@ -86,3 +88,36 @@ class TestBenchHarness:
         assert r["detail"]["unique_kmers"] == len(want)
         assert r["detail"]["mode"] == "coverage"
         assert r["detail"]["mean_kmer_multiplicity"] > 2  # real duplication
+
+
+class TestPeakTable:
+    def test_h100_found(self):
+        from kmer_tpu.bench import hbm_bytes_per_s
+
+        assert hbm_bytes_per_s("NVIDIA H100 80GB HBM3") == 3.35e12
+
+    def test_unknown_kind_raises(self):
+        import pytest
+
+        from kmer_tpu.bench import hbm_bytes_per_s
+
+        with pytest.raises(ValueError, match="no published memory bandwidth"):
+            hbm_bytes_per_s("cpu")
+
+
+def test_bench_trace_reports_scopes(tmp_path, capsys, monkeypatch):
+    """bench --trace writes a profiler trace and reduces it by scope
+    (the CPU has no device plane, so the reduction is empty here)."""
+    import json
+
+    from kmer_tpu import cli
+    from kmer_tpu.cli import main
+
+    # the persistent compile cache is process-wide: keep it off here
+    monkeypatch.setattr(cli, "enable_compile_cache", lambda: None)
+
+    assert main(["bench", "--reads", "64", "--read-len", "40", "-k", "8",
+                 "--trace", str(tmp_path)]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["detail"]["device_ms_by_scope"] == {}
+    assert out["detail"]["total_kmers"] == 64 * 33

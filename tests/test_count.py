@@ -1,9 +1,11 @@
 """Counting / GROUP BY parity tests — kmer-tests.sql TESTs 12-13."""
 
 import collections
+import functools
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from kmer_tpu import PackedKmers, generate_kmers
 from kmer_tpu.ops.count import (
@@ -310,3 +312,185 @@ class TestGroupSortPairs:
         lo = np.zeros(100, np.uint16)
         got = group_sort_pairs(jnp.asarray(hi), jnp.asarray(lo))
         assert np.array_equal(got[0], hi) and np.array_equal(got[1], lo)
+
+
+def _segment_oracle(keys, drop=None):
+    """Counter over sorted key tuples, minus an optional sentinel key."""
+    want = collections.Counter(keys)
+    if drop is not None:
+        want.pop(drop, None)
+    return dict(want)
+
+
+def _sorted_pairs(case, rng):
+    """(hi, lo) uint32 lanes for one segment-count case, sorted."""
+    if case == "random_duplicates":
+        hi = rng.integers(0, 7, 5000).astype(np.uint32)
+        lo = rng.integers(0, 5, 5000).astype(np.uint32)
+    elif case == "segment_spanning_blocks":
+        hi = np.zeros(4096, np.uint32)
+        lo = np.zeros(4096, np.uint32)
+        hi[-1] = 9  # one giant segment + one singleton
+    elif case == "all_unique":
+        hi = np.arange(1500, dtype=np.uint32)
+        lo = np.arange(1500, dtype=np.uint32)
+    elif case == "single":
+        hi, lo = np.array([5], np.uint32), np.array([0], np.uint32)
+    else:  # "pair"
+        hi, lo = np.array([5, 5], np.uint32), np.array([0, 1], np.uint32)
+    order = np.lexsort((lo, hi))
+    return hi[order], lo[order]
+
+
+class TestSegmentCounts:
+    """The XLA post-sort segment counts against a host Counter."""
+
+    CASES = ["random_duplicates", "segment_spanning_blocks", "all_unique",
+             "single", "pair"]
+
+    @pytest.mark.parametrize("case", CASES)
+    def test_unit_segment_counts(self, case):
+        from kmer_tpu.ops.count import _segment_counts
+
+        shi, slo = _sorted_pairs(case, np.random.default_rng(0))
+        new = np.ones(shi.size, bool)
+        new[1:] = (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])
+        counts = np.asarray(_segment_counts(jnp.asarray(new)))
+        keys = list(zip(shi.tolist(), slo.tolist()))
+        got = {}
+        for i in np.nonzero(counts > 0)[0]:
+            assert keys[i] not in got, "one nonzero count per segment"
+            assert new[i], "unit counts sit at the segment head"
+            got[keys[i]] = int(counts[i])
+        assert got == _segment_oracle(keys)
+
+    @pytest.mark.parametrize("case", CASES)
+    def test_count_windows_unmasked(self, case):
+        from kmer_tpu.ops.count import count_windows
+
+        hi, lo = _sorted_pairs(case, np.random.default_rng(1))
+        perm = np.random.default_rng(2).permutation(hi.size)
+        hi, lo = hi[perm], lo[perm]  # count_windows sorts for itself
+        t = count_windows(jnp.asarray(hi), jnp.asarray(lo), None, 32).trim()
+        got = {(int(a), int(b)): int(c)
+               for a, b, c in zip(t.hi, t.lo, t.counts)}
+        assert got == _segment_oracle(list(zip(hi.tolist(), lo.tolist())))
+        assert int(t.n_unique) == len(got)
+
+    def test_sentinel_folding(self):
+        """Invalid slots fold into the sentinel key and are not counted."""
+        from kmer_tpu.ops.count import count_windows
+
+        rng = np.random.default_rng(3)
+        n = 3000
+        hi = (rng.integers(0, 5, n).astype(np.uint32) << np.uint32(22))
+        lo = np.zeros(n, np.uint32)
+        valid = np.ones(n, bool)
+        valid[:700] = False
+        t = count_windows(jnp.asarray(hi), jnp.asarray(lo),
+                          jnp.asarray(valid), 8).trim()
+        got = {int(a): int(c) for a, c in zip(t.hi, t.counts)}
+        assert got == dict(collections.Counter(hi[valid].tolist()))
+        assert int(t.n_unique) == len(got)
+
+    @pytest.mark.parametrize("k", [8, 21, 30, 32])
+    def test_count_windows_masked_vs_counter(self, k):
+        """Every sort width of count_windows, masked, with duplicates."""
+        from kmer_tpu.ops.count import count_windows
+
+        rng = np.random.default_rng(k)
+        n = 2000
+        # few distinct left-aligned k-mers so segments repeat
+        pool = rng.integers(0, 1 << 62, 40, dtype=np.uint64) << np.uint64(2)
+        pool &= ~np.uint64((1 << (64 - 2 * k)) - 1)
+        if k == 32:
+            pool[0] = np.uint64(2**64 - 1)  # all-t: equal to the sentinel bits
+        keys = pool[rng.integers(0, pool.size, n)]
+        hi = (keys >> np.uint64(32)).astype(np.uint32)
+        lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        valid = rng.random(n) < 0.8
+        t = count_windows(jnp.asarray(hi), jnp.asarray(lo),
+                          jnp.asarray(valid), k).trim()
+        got = {(int(a), int(b)): int(c)
+               for a, b, c in zip(t.hi, t.lo, t.counts)}
+        want = collections.Counter(zip(hi[valid].tolist(), lo[valid].tolist()))
+        assert got == dict(want)
+        assert np.all(np.asarray(t.length) == k)
+
+
+class TestSmallK:
+    """Small k counts through the sort route (the only route)."""
+
+    @pytest.mark.parametrize("k", [1, 2, 4, 6])
+    def test_small_k_matches_counter(self, k):
+        reads = simulate_reads(32, 40, seed=k)
+        lengths = np.full(32, 40, np.int32)
+        lengths[3] = k - 1 if k > 1 else 0  # a read too short for any window
+        t = count_kmers_jit(jnp.asarray(reads), jnp.asarray(lengths), k, False)
+        want = collections.Counter()
+        for row, ln in zip(reads, lengths):
+            s = "".join("acgt"[c] for c in row[:ln])
+            want.update(extract_to_strings(s, k) if ln >= k else [])
+        assert t.to_dict() == dict(want)
+
+
+class TestTrimLayouts:
+    """CountTable.trim compacts each device's copy on that device and
+    returns the live groups in ascending key order for every layout."""
+
+    @staticmethod
+    def _table(mixed_lengths: bool):
+        from kmer_tpu.ops.count import CountTable
+
+        rng = np.random.default_rng(9)
+        n = 4096
+        # distinct keys, as a table's live groups are
+        key = rng.choice(1 << 20, n, replace=False)
+        hi = (key >> 2).astype(np.uint32)
+        lo = (key & 3).astype(np.uint32) << np.uint32(30)
+        ln = (rng.integers(20, 23, n) if mixed_lengths
+              else np.full(n, 21)).astype(np.int32)
+        counts = rng.integers(0, 3, n).astype(np.int32)
+        return CountTable(hi=hi, lo=lo, length=ln, counts=counts,
+                          n_unique=np.int64(0))
+
+    @staticmethod
+    def _want(t):
+        live = t.counts > 0
+        order = np.lexsort((t.length[live], t.lo[live], t.hi[live]))
+        return [np.asarray(x)[live][order]
+                for x in (t.hi, t.lo, t.length, t.counts)]
+
+    @pytest.mark.parametrize("layout", ["one_device", "replicated", "sharded"])
+    @pytest.mark.parametrize("mixed_lengths", [False, True])
+    def test_trim_matches_host(self, layout, mixed_lengths):
+        import jax
+        from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+        from kmer_tpu.ops.count import CountTable
+
+        host = self._table(mixed_lengths)
+        if layout == "one_device":
+            put = jnp.asarray
+        else:
+            mesh = Mesh(np.array(jax.devices()[:4]), ("d",))
+            spec = P() if layout == "replicated" else P("d")
+            put = functools.partial(jax.device_put,
+                                    device=NamedSharding(mesh, spec))
+        if layout == "sharded":
+            # shards are ascending runs of disjoint keys, as the
+            # partition merge leaves them; the global array is not sorted
+            pad = (-self._want(host)[0].size) % 4  # dead rows, count 0
+            lanes = [np.concatenate(np.array_split(
+                np.concatenate([x, np.zeros(pad, x.dtype)]), 4)[::-1])
+                for x in self._want(host)]
+            host = CountTable(*lanes, n_unique=np.int64(0))
+        dev = CountTable(*(put(x) for x in (host.hi, host.lo, host.length,
+                                            host.counts)),
+                         n_unique=jnp.zeros((), jnp.int32))
+        got = dev.trim()
+        for a, b in zip((got.hi, got.lo, got.length, got.counts),
+                        self._want(host)):
+            assert isinstance(a, np.ndarray)
+            assert np.array_equal(a, b)
+        assert int(got.n_unique) == self._want(host)[0].size

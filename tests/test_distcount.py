@@ -187,8 +187,7 @@ class TestTwoProcessIntegration:
         port = _free_port()
 
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
-        env["KMER_TPU_FORCE_CPU"] = "1"
+        env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
         procs = []
         for pid in (0, 1):
@@ -229,8 +228,7 @@ class TestRankDesyncRecovery:
 
     def _launch(self, tmp_path, pid, port, ck):
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
-        env["KMER_TPU_FORCE_CPU"] = "1"
+        env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
         return subprocess.Popen(
             [sys.executable, "-m", "kmer_tpu", "distcount",
@@ -391,8 +389,7 @@ class TestDriverSpill:
         port = _free_port()
 
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
-        env["KMER_TPU_FORCE_CPU"] = "1"
+        env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
         procs = []
         for pid in (0, 1):

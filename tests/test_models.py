@@ -30,6 +30,7 @@ def _oracle(reads, lengths, k, canonical=False):
 
 class TestKmerCounter:
     def test_small_k_uses_dense_and_matches(self):
+        # small k runs the sort route like every other k
         cfg = EngineConfig(k=6, canonical=True)
         model = KmerCounter(cfg)
         reads = simulate_reads(32, 40, seed=1)

@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
-Exercises the halo exchange and collective table merge without TPU pod
-hardware (SURVEY.md §4's CI strategy).
+Exercises the halo exchange and collective table merge without
+multi-device hardware (SURVEY.md §4's CI strategy).
 """
 
 import collections
@@ -195,3 +195,19 @@ class TestMultihost:
             ok = initialize_multihost(strict=False)
         assert ok is False
         assert any("single-process" in r.getMessage() for r in caplog.records)
+
+
+@pytest.mark.parametrize("merge", ["gather", "partition"])
+def test_merge_traces_past_2_28_rows(merge):
+    """A global batch whose merged tables exceed 2^28 rows (4 x 2^20
+    reads x 150 bp) traces: the recount's weights are window counts of
+    one batch, so their total fits int32 and the bounded path applies."""
+    from kmer_tpu.parallel.dist import make_sharded_count_step
+
+    mesh = make_mesh((4, 1), jax.devices()[:4])
+    step = make_sharded_count_step(mesh, 21, canonical=True, merge=merge)
+    out = jax.eval_shape(
+        step, jax.ShapeDtypeStruct((4 << 20, 150), jnp.uint8),
+        jax.ShapeDtypeStruct((4 << 20,), jnp.int32))
+    table = out[0] if merge == "partition" else out
+    assert table.counts.shape[0] >= 1 << 28

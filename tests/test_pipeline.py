@@ -380,10 +380,9 @@ def test_column_feed_exact():
 
 
 def test_defaults_pin_measured_knee():
-    """VERDICT r4 item #3: shipped defaults must match the probe_r4d
-    measurement (512k reads x 150bp was the knee; 4096-read defaults
-    gave users the 0.6M/s experience)."""
-    # 150bp reads -> width 160 -> auto batch >= the r4-measured optimum
+    """Shipped defaults keep large steps: 150 bp reads get >= 256k
+    reads per step (4096-read steps were dispatch-bound)."""
+    # 150bp reads -> width 160 -> auto batch >= 256k reads
     assert auto_width(np.asarray([150, 150, 150])) == 160
     assert auto_batch(160, 21) >= 1 << 18
     # a step never exceeds ~128M window slots (sort n·log n regression)

@@ -152,3 +152,26 @@ class TestCheckpointFormat:
         )
         with pytest.raises(ValueError, match="live_per_shard"):
             load_wide(lying)
+
+
+@pytest.mark.parametrize("outgrown", [False, True])
+def test_snapshot_writer_outgrown_guess(tmp_path, outgrown, monkeypatch):
+    """A checkpoint whose live count outgrew the slicing guess is still
+    written exactly — from whole-lane transfers, with no device program
+    dispatched from the writer thread."""
+    from kmer_tpu.parallel import streaming as st
+
+    mesh = make_mesh((8, 1))
+    codes, lengths = _make_batches(4, 8, 24, seed=5)
+    acc, overflow = stream_sharded_count(
+        batches_of(codes, lengths, 8), K, mesh, acc_capacity=512)
+    assert overflow == 0
+    snapper = st._StreamSnapshotter(8, 512)
+    snap = snapper.snapshot(acc)
+    if outgrown:
+        snap["guess"] = 1  # as if keys arrived after the guess was set
+        monkeypatch.setattr(snapper, "_pack", None)  # must not be called
+    path = str(tmp_path / "snap.npz")
+    snapper.write(snap, path, {"mesh_shape": [8, 1]})
+    got, _ = st.load_wide(path)
+    assert got.to_dict() == _host_oracle(codes, lengths, K)
